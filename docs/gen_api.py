@@ -2,7 +2,7 @@
 
 The reference builds its docs with sphinx (+ doxygen for the C API);
 neither is installed in this environment, so ``make docs`` runs this
-instead: it imports every ``biseqt_tpu`` module, walks public classes /
+instead: it imports every ``biseqt_jax`` module, walks public classes /
 functions, and writes one markdown page per module to ``docs/api/``.
 If sphinx ever becomes available, ``make docs`` prefers it.
 
@@ -16,29 +16,28 @@ import sys
 import textwrap
 
 MODULES = [
-    "biseqt_tpu.sequence",
-    "biseqt_tpu.database",
-    "biseqt_tpu.kmers",
-    "biseqt_tpu.seeds",
-    "biseqt_tpu.blot",
-    "biseqt_tpu.pw",
-    "biseqt_tpu.stochastics",
-    "biseqt_tpu.pipeline",
-    "biseqt_tpu.profiling",
-    "biseqt_tpu.utils",
-    "biseqt_tpu.ops.banded_dp",
-    "biseqt_tpu.ops.pallas_dp",
-    "biseqt_tpu.ops.pallas_dp_ad",
-    "biseqt_tpu.ops.pallas_walk",
-    "biseqt_tpu.ops.tables",
-    "biseqt_tpu.ops.blot_stats",
-    "biseqt_tpu.ops.allvsall_sorted",
-    "biseqt_tpu.parallel.mesh",
-    "biseqt_tpu.parallel.allvsall",
-    "biseqt_tpu.parallel.sharded_dp",
-    "biseqt_tpu.parallel.sharded_dp_ad",
-    "biseqt_tpu.parallel.sweep",
-    "biseqt_tpu.native",
+    "biseqt_jax.sequence",
+    "biseqt_jax.database",
+    "biseqt_jax.kmers",
+    "biseqt_jax.seeds",
+    "biseqt_jax.blot",
+    "biseqt_jax.pw",
+    "biseqt_jax.stochastics",
+    "biseqt_jax.pipeline",
+    "biseqt_jax.profiling",
+    "biseqt_jax.utils",
+    "biseqt_jax.ops.banded_dp",
+    "biseqt_jax.ops.engine",
+    "biseqt_jax.ops.cuda_dp",
+    "biseqt_jax.ops.tables",
+    "biseqt_jax.ops.blot_stats",
+    "biseqt_jax.ops.allvsall_sorted",
+    "biseqt_jax.parallel.mesh",
+    "biseqt_jax.parallel.allvsall",
+    "biseqt_jax.parallel.sharded_dp",
+    "biseqt_jax.parallel.sharded_dp_ad",
+    "biseqt_jax.parallel.sweep",
+    "biseqt_jax.native",
 ]
 
 
@@ -103,7 +102,7 @@ def main():
     outdir = sys.argv[1] if len(sys.argv) > 1 else os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "api")
     os.makedirs(outdir, exist_ok=True)
-    index = ["# biseqt-tpu API reference", "",
+    index = ["# biseqt-jax API reference", "",
              "Generated from docstrings by `docs/gen_api.py`.", ""]
     for modname in MODULES:
         page = modname.replace(".", "_") + ".md"

@@ -18,10 +18,10 @@ sys.path.insert(
     0, os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 )
 
-from biseqt_tpu.sequence import Alphabet
-from biseqt_tpu.stochastics import rand_seq, MutationProcess
-from biseqt_tpu.blot import band_radius
-from biseqt_tpu.utils import with_dumpfile
+from biseqt_jax.sequence import Alphabet
+from biseqt_jax.stochastics import rand_seq, MutationProcess
+from biseqt_jax.blot import band_radius
+from biseqt_jax.utils import with_dumpfile
 
 A4 = Alphabet("ACGT")
 
@@ -62,6 +62,9 @@ def run(Ks=(100, 400, 1600), gs=(0.05, 0.15, 0.3), sensitivity=0.99,
 
 
 def main():
+    from biseqt_jax.utils import enable_compile_cache
+
+    enable_compile_cache()
     import argparse
 
     ap = argparse.ArgumentParser()

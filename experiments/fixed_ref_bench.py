@@ -24,9 +24,9 @@ sys.path.insert(
     0, os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 )
 
-from biseqt_tpu.sequence import Alphabet
-from biseqt_tpu.stochastics import rand_seq, MutationProcess
-from biseqt_tpu.blot import WordBlotLocalRef
+from biseqt_jax.sequence import Alphabet
+from biseqt_jax.stochastics import rand_seq, MutationProcess
+from biseqt_jax.blot import WordBlotLocalRef
 
 A4 = Alphabet("ACGT")
 
@@ -53,7 +53,7 @@ def run(ref_len=5_000_000, n_queries=100, query_len=10_000, err=0.10,
     wb = WordBlotLocalRef(ref, wordlen=wordlen, g_max=0.25)
     t_index = time.time() - t0
 
-    # first query separately: it pays the per-shape remote compiles of
+    # first query separately: it pays the per-shape compiles of
     # the grid scatter + stats launches; the rest reuse them
     def one(q):
         segs = sorted(
@@ -107,6 +107,9 @@ def run(ref_len=5_000_000, n_queries=100, query_len=10_000, err=0.10,
 
 
 def main():
+    from biseqt_jax.utils import enable_compile_cache
+
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true")
     args = ap.parse_args()

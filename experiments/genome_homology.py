@@ -21,10 +21,10 @@ sys.path.insert(
     0, os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 )
 
-from biseqt_tpu.sequence import Alphabet, Sequence
-from biseqt_tpu.stochastics import rand_seq, MutationProcess
-from biseqt_tpu.blot import WordBlot
-from biseqt_tpu.pipeline import extend_segments
+from biseqt_jax.sequence import Alphabet, Sequence
+from biseqt_jax.stochastics import rand_seq, MutationProcess
+from biseqt_jax.blot import WordBlot
+from biseqt_jax.pipeline import extend_segments
 
 A4 = Alphabet("ACGT")
 
@@ -67,7 +67,7 @@ def run_once(seed, size, n_blocks, wordlen, transcripts=False):
     t_discover = time.time() - t0
 
     t0 = time.time()
-    ext = extend_segments(A_seq, B_seq, segs, use_pallas=None,
+    ext = extend_segments(A_seq, B_seq, segs,
                           with_transcripts=transcripts)
     t_extend = time.time() - t0
 
@@ -112,18 +112,21 @@ def run_once(seed, size, n_blocks, wordlen, transcripts=False):
 
 
 def main():
+    from biseqt_jax.utils import enable_compile_cache
+
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--size", type=int, default=2_000_000)
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--wordlen", type=int, default=12)
     ap.add_argument("--warm", action="store_true",
                     help="run the flow twice on different genome pairs "
-                         "and report the second pass: first-pass remote "
-                         "TPU compiles (minutes at genome shapes) "
-                         "otherwise dominate every phase timing")
+                         "and report the second pass: first-pass "
+                         "compiles otherwise dominate every phase timing")
     ap.add_argument("--transcripts", action="store_true",
-                    help="extend with MSID transcripts (on-device sweep "
-                         "walk); reports total ops + match fraction")
+                    help="extend with MSID transcripts (direction bytes "
+                         "walked by the C++ tracer); reports total ops + "
+                         "match fraction")
     ap.add_argument("--dumpfile", default=None,
                     help="cache the run's rows (pickle); a later --plot "
                          "re-renders without re-running the chip")
@@ -134,7 +137,7 @@ def main():
     size = 100_000 if args.quick else args.size
     n_blocks = 4 if args.quick else 8
 
-    from biseqt_tpu.utils import with_dumpfile
+    from biseqt_jax.utils import with_dumpfile
 
     @with_dumpfile
     def _runs():
@@ -152,7 +155,7 @@ def main():
     rows = _runs(dumpfile=args.dumpfile)
     for res in rows:
         print(json.dumps(res))
-    from biseqt_tpu.profiling import report
+    from biseqt_jax.profiling import report
     print(report())
     if args.plot:
         from figures import plot_genome_phases

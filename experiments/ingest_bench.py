@@ -21,14 +21,17 @@ import numpy as np
 
 
 def main():
+    from biseqt_jax.utils import enable_compile_cache
+
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--size", type=int, default=5_000_000)
     ap.add_argument("--python-too", action="store_true",
                     help="also time the pure-Python reader tier")
     args = ap.parse_args()
 
-    from biseqt_tpu.sequence import Alphabet
-    from biseqt_tpu.database import DB
+    from biseqt_jax.sequence import Alphabet
+    from biseqt_jax.database import DB
 
     A4 = Alphabet("ACGT")
     rng = np.random.default_rng(7)

@@ -19,14 +19,17 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from biseqt_tpu.sequence import Alphabet
-from biseqt_tpu.stochastics import rand_seq, MutationProcess
-from biseqt_tpu.blot import WordBlotMultiple
+from biseqt_jax.sequence import Alphabet
+from biseqt_jax.stochastics import rand_seq, MutationProcess
+from biseqt_jax.blot import WordBlotMultiple
 
 A4 = Alphabet("ACGT")
 
 
 def main():
+    from biseqt_jax.utils import enable_compile_cache
+
+    enable_compile_cache()
     n_seqs = int(sys.argv[1]) if len(sys.argv) > 1 else 10
     blk = int(sys.argv[2]) if len(sys.argv) > 2 else 20_000
     rng = np.random.default_rng(7)

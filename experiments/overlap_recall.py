@@ -18,11 +18,11 @@ sys.path.insert(
     0, os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 )
 
-from biseqt_tpu.sequence import Alphabet, pack_sequences
-from biseqt_tpu.stochastics import rand_seq, MutationProcess
-from biseqt_tpu.parallel.allvsall import overlap_matrix_sharded
-from biseqt_tpu.parallel import make_mesh
-from biseqt_tpu.utils import with_dumpfile
+from biseqt_jax.sequence import Alphabet, pack_sequences
+from biseqt_jax.stochastics import rand_seq, MutationProcess
+from biseqt_jax.parallel.allvsall import overlap_matrix_sharded
+from biseqt_jax.parallel import make_mesh
+from biseqt_jax.utils import with_dumpfile
 
 A4 = Alphabet("ACGT")
 
@@ -64,7 +64,7 @@ def run(genome_len=20000, read_len=3000, n_reads=24, err=0.12,
     if engine == "sorted":
         # the at-scale sort-join engine (the one measured at 1000 x 1000
         # reads in BASELINE config 4); same stats contract
-        from biseqt_tpu.ops.allvsall_sorted import (
+        from biseqt_jax.ops.allvsall_sorted import (
             overlap_stats_sorted_chunked,
         )
         import jax.numpy as jnp
@@ -110,6 +110,9 @@ def run(genome_len=20000, read_len=3000, n_reads=24, err=0.12,
 
 
 def main():
+    from biseqt_jax.utils import enable_compile_cache
+
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--sweep", action="store_true",

@@ -13,7 +13,7 @@ sys.path.insert(
     0, os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 )  # repo root on path
 
-from biseqt_tpu.utils import with_dumpfile, ProgressIndicator, Timer  # noqa
+from biseqt_jax.utils import with_dumpfile, ProgressIndicator, Timer  # noqa
 
 try:
     import matplotlib

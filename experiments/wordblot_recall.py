@@ -23,10 +23,10 @@ sys.path.insert(
     0, os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 )
 
-from biseqt_tpu.sequence import Alphabet
-from biseqt_tpu.stochastics import rand_seq, MutationProcess
-from biseqt_tpu.blot import WordBlot, band_radius
-from biseqt_tpu.utils import with_dumpfile
+from biseqt_jax.sequence import Alphabet
+from biseqt_jax.stochastics import rand_seq, MutationProcess
+from biseqt_jax.blot import WordBlot, band_radius
+from biseqt_jax.utils import with_dumpfile
 
 A4 = Alphabet("ACGT")
 
@@ -157,6 +157,9 @@ def run_sweep(seq_len=100000, n_segments=4, seg_len=1000, subst=0.1,
 
 
 def main():
+    from biseqt_jax.utils import enable_compile_cache
+
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--dumpfile", default=None)

@@ -80,3 +80,22 @@ def dp_oracle(s, t, subst, go, ge, *, dmin=None, dmax=None,
             best = max(best, H[i][m])
         return best
     return H[n][m]
+
+
+def rescore(ops, s, t, si, sj, subst, go, ge):
+    """Score an MSID transcript starting at (si, sj); returns
+    ``(score, end_i, end_j)``."""
+    score, i, j, prev = 0.0, si, sj, None
+    for op in ops:
+        if op in "MS":
+            score += subst[s[i], t[j]]
+            i += 1
+            j += 1
+        elif op == "I":
+            score += ge + (go if prev != "I" else 0.0)
+            j += 1
+        else:
+            score += ge + (go if prev != "D" else 0.0)
+            i += 1
+        prev = op
+    return score, i, j

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from biseqt_tpu.sequence import Alphabet
-from biseqt_tpu.stochastics import rand_seq, MutationProcess
-from biseqt_tpu.blot import (
+from biseqt_jax.sequence import Alphabet
+from biseqt_jax.stochastics import rand_seq, MutationProcess
+from biseqt_jax.blot import (
     band_radius, band_radii, expected_overlap_len,
     WordBlot, WordBlotOverlap, WordBlotLocalRef, WordBlotMultiple,
 )
@@ -255,7 +255,7 @@ def test_sparse_segments_match_dense(rng):
 
 
 def test_seed_index_persistence(tmp_path, rng):
-    from biseqt_tpu.seeds import SeedIndex
+    from biseqt_jax.seeds import SeedIndex
     S = rand_seq(A4, 200, rng=rng)
     M = MutationProcess(A4, subst_probs=0.1, go_prob=0.03, ge_prob=0.1,
                         rng=rng)
@@ -269,7 +269,7 @@ def test_seed_index_persistence(tmp_path, rng):
 
 
 def test_overlap_ref_matches_pairwise(rng):
-    from biseqt_tpu.blot import WordBlotOverlapRef
+    from biseqt_jax.blot import WordBlotOverlapRef
     M = MutationProcess(A4, subst_probs=0.08, go_prob=0.04, ge_prob=0.2,
                         rng=rng)
     genome = rand_seq(A4, 1500, rng=rng)

@@ -4,9 +4,9 @@ import io
 
 import pytest
 
-from biseqt_tpu.sequence import Alphabet, NamedSequence
-from biseqt_tpu.database import DB, Record, read_fasta, write_fasta
-from biseqt_tpu.stochastics import rand_seq
+from biseqt_jax.sequence import Alphabet, NamedSequence
+from biseqt_jax.database import DB, Record, read_fasta, write_fasta
+from biseqt_jax.stochastics import rand_seq
 
 A4 = Alphabet("ACGT")
 

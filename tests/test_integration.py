@@ -5,12 +5,12 @@ hand, driven through this framework's layers in one test."""
 
 import numpy as np
 
-from biseqt_tpu.sequence import Alphabet
-from biseqt_tpu.database import DB
-from biseqt_tpu.kmers import KmerIndex
-from biseqt_tpu.stochastics import rand_seq, MutationProcess
-from biseqt_tpu.pipeline import discover_and_extend
-from biseqt_tpu.pw import Alignment
+from biseqt_jax.sequence import Alphabet
+from biseqt_jax.database import DB
+from biseqt_jax.kmers import KmerIndex
+from biseqt_jax.stochastics import rand_seq, MutationProcess
+from biseqt_jax.pipeline import discover_and_extend
+from biseqt_jax.pw import Alignment
 
 A4 = Alphabet("ACGT")
 
@@ -48,7 +48,7 @@ def test_fasta_to_transcripts(tmp_path, rng):
     T2 = db.load_from_record(recs[1])
     assert str(S2) == str(S) and str(T2) == str(T)
     out = discover_and_extend(
-        S2, T2, wordlen=8, K_min=250, p_min=0.6, use_pallas=False,
+        S2, T2, wordlen=8, K_min=250, p_min=0.6,
         with_transcripts=True,
     )
     assert out, "planted homology not discovered"

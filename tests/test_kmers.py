@@ -5,10 +5,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from biseqt_tpu.sequence import Alphabet, Sequence, pack_sequences
-from biseqt_tpu.kmers import kmer_as_int, as_kmer_seq, KmerIndex, KmerCache
-from biseqt_tpu.ops.tables import kmer_keys, KEY_SENTINEL, build_kmer_table
-from biseqt_tpu.stochastics import rand_seq
+from biseqt_jax.sequence import Alphabet, Sequence, pack_sequences
+from biseqt_jax.kmers import kmer_as_int, as_kmer_seq, KmerIndex, KmerCache
+from biseqt_jax.ops.tables import kmer_keys, KEY_SENTINEL, build_kmer_table
+from biseqt_jax.stochastics import rand_seq
 
 A4 = Alphabet("ACGT")
 
@@ -114,8 +114,8 @@ def test_incremental_refresh_merges_batches():
     earlier batches are not re-indexed or thrown away (regression: refresh
     used to rebuild from only the latest pending batch)."""
     import io
-    from biseqt_tpu.database import DB
-    from biseqt_tpu.kmers import KmerIndex
+    from biseqt_jax.database import DB
+    from biseqt_jax.kmers import KmerIndex
 
     db = DB(":memory:", A4)
     idx = KmerIndex(wordlen=4, alphabet=A4).attach_to(db)
@@ -127,7 +127,7 @@ def test_incremental_refresh_merges_batches():
     assert idx.num_seqs == 2
     assert idx.num_kmers == 7 + 5
     # k-mer ACGT appears in both sequences with distinct seq ids
-    from biseqt_tpu.kmers import kmer_as_int
+    from biseqt_jax.kmers import kmer_as_int
     km = kmer_as_int([A4.letters.index(c) for c in "ACGT"], A4)
     hits = idx.hits(km)
     seqs_seen = {s for s, _ in hits}
@@ -138,7 +138,7 @@ def test_incremental_refresh_merges_batches():
     assert idx.table()[0] is tbl[0]
     # direct index + refresh: direct batch preserved
     idx2 = KmerIndex(wordlen=4, alphabet=A4)
-    from biseqt_tpu.sequence import Sequence
+    from biseqt_jax.sequence import Sequence
     idx2.index_kmers([A4.parse("ACGTACGTAC")])
     db2 = DB(":memory:", A4)
     idx2.attach_to(db2)
@@ -184,7 +184,7 @@ def test_mask_repetitive_persists_to_snapshot(tmp_path):
 
 
 def test_as_kmer_keys_np_negative_and_edge_windows():
-    from biseqt_tpu.kmers import as_kmer_keys_np
+    from biseqt_jax.kmers import as_kmer_keys_np
     # windows touching a negative (ambiguity/PAD) code come back -1
     c = np.array([0, 1, -1, 2, 3, 0, 1, 2], np.int64)
     got = as_kmer_keys_np(c, 3, 4).tolist()

@@ -3,20 +3,19 @@
 The reference's C engine accepts any matrix over any alphabet
 (``pwlib — alnscores``); these tests pin the shipped BLOSUM62/PAM250
 constants (symmetry/diagonals assert at import) and drive the full
-protein path: matrices -> integer-grid detection (the packed-planes
-kernel route) -> Aligner scores vs the numpy oracle -> transcript
-re-scoring.
+protein path: matrices -> the engine selection rule (integer scores take
+the CUDA kernel on a GPU) -> Aligner scores vs the numpy oracle ->
+transcript re-scoring.
 """
 
-import numpy as np
 import pytest
 
-from biseqt_tpu import pw
-from biseqt_tpu.matrices import (BLOSUM62, PAM250, PROTEIN_LETTERS,
+from biseqt_jax import pw
+from biseqt_jax.matrices import (BLOSUM62, PAM250, PROTEIN_LETTERS,
                                  protein_alphabet)
-from biseqt_tpu.ops.pallas_dp_ad import _int_grid
-from biseqt_tpu.pw import Aligner
-from biseqt_tpu.stochastics import MutationProcess, rand_seq
+from biseqt_jax.ops import cuda_dp, engine
+from biseqt_jax.pw import Aligner
+from biseqt_jax.stochastics import MutationProcess, rand_seq
 
 from oracle import dp_oracle
 
@@ -38,12 +37,14 @@ def test_matrix_landmarks():
             assert m[IDX[b], IDX[a]] == v, (b, a)
 
 
-def test_matrices_take_the_packed_kernel_route():
-    """Both shipped matrices are integer grids, so the AD kernel's
-    auto-path detection routes them through the packed-planes
-    substitution lowering (docs/kernels.md round-4 section)."""
-    assert _int_grid(np.asarray(BLOSUM62)) == (-4.0, 1.0)
-    assert _int_grid(np.asarray(PAM250)) == (-8.0, 1.0)
+def test_matrices_take_the_packed_kernel_route(monkeypatch):
+    """Both shipped matrices are integer-valued, so with their classic
+    gap scores the selector routes them to the CUDA kernel on a GPU."""
+    monkeypatch.setattr(cuda_dp, "load", lambda: None)
+    for subst, go, ge in ((BLOSUM62, -11.0, -1.0), (PAM250, -10.0, -2.0)):
+        assert cuda_dp.supports(subst, go, ge, 256, 2048, 2048)
+        assert engine.select_engine(subst, go, ge, 256, 2048, 2048,
+                                    platform="gpu") == "cuda"
 
 
 @pytest.mark.parametrize("subst,go,ge", [
@@ -66,10 +67,13 @@ def test_protein_alignment_matches_oracle(rng, subst, go, ge):
         assert rescored == pytest.approx(score, abs=1e-3)
 
 
-def test_protein_banded_pallas_backend_matches_lax(rng):
-    """BLOSUM62 through the flagship AD kernel (interpret mode on CPU):
-    the packed-planes route must agree with the lax engine through the
-    public Aligner API."""
+def test_protein_banded_default_backend_matches_native(rng):
+    """BLOSUM62 banded through the Aligner's platform-selected engine
+    agrees with the C++ engine, and its transcript rescores exactly."""
+    from biseqt_jax import native
+
+    if not native.available():
+        pytest.skip("native library unavailable")
     P = protein_alphabet()
     S = rand_seq(P, 90, rng=rng)
     M = MutationProcess(P, subst_probs=0.1, go_prob=0.05, ge_prob=0.2,
@@ -79,8 +83,10 @@ def test_protein_banded_pallas_backend_matches_lax(rng):
     kw = dict(alnmode=pw.BANDED_MODE, alntype=pw.B_GLOBAL,
               diag_range=(min(d0, 0) - 10, max(d0, 0) + 10),
               subst_scores=BLOSUM62, go_score=-11.0, ge_score=-1.0)
-    with Aligner(S, T, backend="lax", **kw) as aln:
+    with Aligner(S, T, backend="native", **kw) as aln:
         ref = aln.solve()
-    with Aligner(S, T, backend="pallas", **kw) as aln:
+    with Aligner(S, T, **kw) as aln:
         got = aln.solve()
-    assert got == pytest.approx(ref, abs=1e-2)
+        tx = aln.traceback()
+    assert got == ref
+    assert tx.calculate_score(BLOSUM62, -11.0, -1.0) == got

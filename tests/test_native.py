@@ -6,10 +6,10 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from biseqt_tpu.sequence import Alphabet, pack_sequences
-from biseqt_tpu.stochastics import rand_seq, MutationProcess
-from biseqt_tpu.ops.banded_dp import banded_dp, ModeFlags, traceback_path
-from biseqt_tpu import native
+from biseqt_jax.sequence import Alphabet, pack_sequences
+from biseqt_jax.stochastics import rand_seq, MutationProcess
+from biseqt_jax.ops.banded_dp import banded_dp, ModeFlags, traceback_path
+from biseqt_jax import native
 
 from oracle import dp_oracle
 
@@ -143,8 +143,8 @@ def test_fasta_pack_unknown_letter_raises(tmp_path):
 
 
 def test_aligner_native_backend_matches_lax(rng):
-    from biseqt_tpu import pw
-    from biseqt_tpu.pw import Aligner
+    from biseqt_jax import pw
+    from biseqt_jax.pw import Aligner
 
     M = MutationProcess(A4, subst_probs=0.12, go_prob=0.05, ge_prob=0.2,
                         rng=rng)
@@ -179,7 +179,7 @@ def test_abi_version_gate():
     refuse, not warn (round-4 advisor finding).
     """
     import ctypes
-    import biseqt_tpu.native as native
+    import biseqt_jax.native as native
     if not native.available():
         pytest.skip("native library unavailable")
     lib = ctypes.CDLL(native._SO)

@@ -5,12 +5,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from biseqt_tpu.sequence import Alphabet, pack_sequences
-from biseqt_tpu.stochastics import rand_seq, MutationProcess
-from biseqt_tpu.parallel import make_mesh, all_vs_all_overlaps
-from biseqt_tpu.parallel.allvsall import overlap_matrix_sharded, overlap_stats_block
-from biseqt_tpu.parallel.sharded_dp import banded_dp_band_sharded
-from biseqt_tpu.ops.banded_dp import banded_dp, ModeFlags
+from biseqt_jax.sequence import Alphabet, pack_sequences
+from biseqt_jax.stochastics import rand_seq, MutationProcess
+from biseqt_jax.parallel import make_mesh, all_vs_all_overlaps
+from biseqt_jax.parallel.allvsall import overlap_matrix_sharded, overlap_stats_block
+from biseqt_jax.parallel.sharded_dp import banded_dp_band_sharded
+from biseqt_jax.ops.banded_dp import banded_dp, ModeFlags
 
 A4 = Alphabet("ACGT")
 
@@ -157,8 +157,8 @@ def test_band_sharded_dp_edge_lanes_valid(rng):
 
 
 def test_checkpointed_sweep_resumes(tmp_path, rng):
-    from biseqt_tpu.parallel.sweep import checkpointed_overlap_sweep
-    from biseqt_tpu.parallel.allvsall import overlap_stats_block
+    from biseqt_jax.parallel.sweep import checkpointed_overlap_sweep
+    from biseqt_jax.parallel.allvsall import overlap_stats_block
     import jax.numpy as jnp
     import os
 
@@ -188,9 +188,9 @@ def test_checkpointed_sweep_resumes(tmp_path, rng):
 
 def test_kmer_index_db_events(tmp_path, rng):
     import io
-    from biseqt_tpu.database import DB
-    from biseqt_tpu.kmers import KmerIndex
-    from biseqt_tpu.sequence import Alphabet
+    from biseqt_jax.database import DB
+    from biseqt_jax.kmers import KmerIndex
+    from biseqt_jax.sequence import Alphabet
 
     db = DB(":memory:", A4)
     idx = KmerIndex(wordlen=4, alphabet=A4).attach_to(db)
@@ -202,7 +202,7 @@ def test_kmer_index_db_events(tmp_path, rng):
 
 def test_sorted_allvsall_matches_blockwise(rng):
     """Sort-join all-vs-all agrees with the per-pair search formulation."""
-    from biseqt_tpu.ops.allvsall_sorted import overlap_stats_sorted
+    from biseqt_jax.ops.allvsall_sorted import overlap_stats_sorted
 
     reads, starts = _reads_with_overlaps(rng, n_reads=8, glen=2000,
                                          rlen=600)
@@ -227,8 +227,8 @@ def test_sorted_allvsall_matches_blockwise(rng):
 
 
 def test_sorted_sharded_matches_single_device(rng):
-    from biseqt_tpu.parallel.allvsall import overlap_matrix_sorted_sharded
-    from biseqt_tpu.ops.allvsall_sorted import overlap_stats_sorted
+    from biseqt_jax.parallel.allvsall import overlap_matrix_sorted_sharded
+    from biseqt_jax.ops.allvsall_sorted import overlap_stats_sorted
 
     reads, _ = _reads_with_overlaps(rng, n_reads=8, glen=2000, rlen=600)
     codes, lens = pack_sequences(reads, pad_to=768)
@@ -251,7 +251,7 @@ def test_band_sharded_ad_matches_unsharded(rng):
     """The antidiagonal band-sharded engine (halo exchange every C steps,
     no per-row all_gather) matches the unsharded row engine across modes,
     ragged lengths, mixed dmin, and small halo (many exchanges)."""
-    from biseqt_tpu.parallel.sharded_dp_ad import banded_dp_band_sharded_ad
+    from biseqt_jax.parallel.sharded_dp_ad import banded_dp_band_sharded_ad
 
     B = 2
     M = MutationProcess(A4, subst_probs=0.15, go_prob=0.05, ge_prob=0.2,
@@ -293,7 +293,7 @@ def test_band_sharded_ad_edge_lanes_valid(rng):
     """Band edges inside the valid cell region + an all-mismatch pair
     (the halo-bug detector geometry): shard boundaries and mesh-edge
     halos must not leak phantom predecessors."""
-    from biseqt_tpu.parallel.sharded_dp_ad import banded_dp_band_sharded_ad
+    from biseqt_jax.parallel.sharded_dp_ad import banded_dp_band_sharded_ad
 
     B, L, W = 2, 96, 64
     s_codes = np.zeros((B, L), np.int8)          # all 'A'
@@ -327,7 +327,7 @@ def test_sorted_allvsall_chunked_matches_unchunked(rng):
     """The chunked wrapper (the past-the-int32-composite-key-ceiling
     path) reproduces the single-launch engine exactly, including the
     shifted last window."""
-    from biseqt_tpu.ops.allvsall_sorted import (
+    from biseqt_jax.ops.allvsall_sorted import (
         overlap_stats_sorted, overlap_stats_sorted_chunked,
     )
 
@@ -353,7 +353,7 @@ def test_sorted_allvsall_auto_max_run_coverage_regime(rng):
     pos)-sorted): at 100 kbp / 30x coverage config-4 recall measured
     0.26.  The auto cap must recover the window counts a small cap
     loses."""
-    from biseqt_tpu.ops.allvsall_sorted import (
+    from biseqt_jax.ops.allvsall_sorted import (
         overlap_stats_sorted, auto_max_run,
     )
 
@@ -417,7 +417,7 @@ def test_band_sharded_row0_ends(rng):
 def test_band_sharded_ad_skewed_lengths(rng):
     """Sharded AD engine at skewed lengths / large positive dmin (the
     char-stream ring wrap repro) and with the full-W default w_eff."""
-    from biseqt_tpu.parallel.sharded_dp_ad import banded_dp_band_sharded_ad
+    from biseqt_jax.parallel.sharded_dp_ad import banded_dp_band_sharded_ad
 
     S = rng.integers(0, 4, 600).astype(np.int8)
     T = np.pad(S[481:581], (0, 28), constant_values=0)[None, :]
@@ -465,7 +465,7 @@ def test_band_sharded_ad_dual_pair_batch(rng):
     batch (exercises the inert pad pair), mixed dmin parities, ragged
     lengths — every pair's score must match the unsharded engine, across
     modes.  (Round-3 packing: pairs (2b2, 2b2+1) share one lane plane.)"""
-    from biseqt_tpu.parallel.sharded_dp_ad import banded_dp_band_sharded_ad
+    from biseqt_jax.parallel.sharded_dp_ad import banded_dp_band_sharded_ad
 
     B = 5
     M = MutationProcess(A4, subst_probs=0.15, go_prob=0.05, ge_prob=0.2,
@@ -507,7 +507,7 @@ def test_sorted_allvsall_large_nbins_no_overflow(rng):
     """Near-duplicate long reads with a small diagonal bucket push the
     (rank, dbin) encoding past int32 without the rank cap (historical
     repro: garbage diag/p for identical reads at nbins >= 512)."""
-    from biseqt_tpu.ops.allvsall_sorted import overlap_stats_sorted
+    from biseqt_jax.ops.allvsall_sorted import overlap_stats_sorted
 
     L = 4096
     reads = np.tile(rng.integers(0, 4, L, dtype=np.int8), (4, 1))
@@ -533,8 +533,8 @@ def test_band_sharded_ad_traceback_rescores(rng):
     across window boundaries.  Small halo + tiny windows maximize the
     number of cross-window resumes; transcripts must rescore to exactly
     the unsharded engine's score across modes."""
-    from test_pallas_dp_ad import _rescore
-    from biseqt_tpu.parallel.sharded_dp_ad import band_sharded_ad_traceback
+    from oracle import rescore as _rescore
+    from biseqt_jax.parallel.sharded_dp_ad import band_sharded_ad_traceback
 
     B = 3                                # odd batch: inert pad pair
     M = MutationProcess(A4, subst_probs=0.15, go_prob=0.05, ge_prob=0.2,
@@ -595,8 +595,8 @@ def test_band_sharded_ad_traceback_skewed(rng):
     char-stream ring-wrap repro geometry) — the window re-solver shares
     the forward's streams, so a wrap bug would corrupt re-solved dirs
     even with a correct forward score."""
-    from test_pallas_dp_ad import _rescore
-    from biseqt_tpu.parallel.sharded_dp_ad import band_sharded_ad_traceback
+    from oracle import rescore as _rescore
+    from biseqt_jax.parallel.sharded_dp_ad import band_sharded_ad_traceback
 
     S = rng.integers(0, 4, 600).astype(np.int8)
     T = np.pad(S[481:581], (0, 28), constant_values=0)[None, :]

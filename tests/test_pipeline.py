@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from biseqt_tpu.sequence import Alphabet
-from biseqt_tpu.stochastics import rand_seq, MutationProcess
-from biseqt_tpu.pipeline import discover_and_extend, extend_segments
-from biseqt_tpu.blot import WordBlot
+from biseqt_jax.sequence import Alphabet
+from biseqt_jax.stochastics import rand_seq, MutationProcess
+from biseqt_jax.pipeline import discover_and_extend, extend_segments
+from biseqt_jax.blot import WordBlot
 
 A4 = Alphabet("ACGT")
 
@@ -19,7 +19,7 @@ def test_discover_and_extend_planted(rng):
     S = rand_seq(A4, 400, rng=rng) + core + rand_seq(A4, 400, rng=rng)
     T = rand_seq(A4, 350, rng=rng) + core_mut + rand_seq(A4, 450, rng=rng)
     out = discover_and_extend(
-        S, T, wordlen=8, K_min=200, p_min=0.6, use_pallas=False
+        S, T, wordlen=8, K_min=200, p_min=0.6
     )
     assert out, "no extended segments"
     best = out[0]
@@ -34,7 +34,7 @@ def test_discover_and_extend_unrelated_scores_low(rng):
     S = rand_seq(A4, 1200, rng=rng)
     T = rand_seq(A4, 1200, rng=rng)
     out = discover_and_extend(
-        S, T, wordlen=8, K_min=300, p_min=0.75, use_pallas=False
+        S, T, wordlen=8, K_min=300, p_min=0.75
     )
     assert out == []
 
@@ -52,7 +52,7 @@ def test_extend_segments_multiple_candidates(rng):
     S = c1 + gap1 + c2
     T = c1m + gap2 + c2m
     out = discover_and_extend(
-        S, T, wordlen=8, K_min=150, p_min=0.6, use_pallas=False
+        S, T, wordlen=8, K_min=150, p_min=0.6
     )
     assert len(out) >= 2
     assert out[0]["score"] > 150 and out[1]["score"] > 150
@@ -62,7 +62,7 @@ def test_extend_segments_with_transcripts(rng):
     """Batched extension returns MSID transcripts that rescore to exactly
     the DP score, walked by the native batched tracer (no per-pair
     Python loop over rows)."""
-    from biseqt_tpu.pw import Alignment
+    from biseqt_jax.pw import Alignment
 
     M = MutationProcess(A4, subst_probs=0.08, go_prob=0.03, ge_prob=0.1,
                         rng=rng)
@@ -78,8 +78,7 @@ def test_extend_segments_with_transcripts(rng):
     assert len(segments) >= 3
     subst = np.where(np.eye(4, dtype=bool), 1.0, -1.0).astype(np.float32)
     out = extend_segments(
-        S, T, segments, subst=subst, go_score=-3.0, ge_score=-1.0,
-        use_pallas=False, with_transcripts=True,
+        S, T, segments, subst=subst, go_score=-3.0, ge_score=-1.0, with_transcripts=True,
     )
     for seg in out:
         assert set(seg["transcript"]) <= set("MSID")
@@ -99,7 +98,7 @@ def test_extend_segments_window_split_contract(rng):
     budget into overlapping windows: the output then has MORE rows than
     the input, each tagged with source_index, and every window's
     transcript still rescores to its own score."""
-    from biseqt_tpu.pw import Alignment
+    from biseqt_jax.pw import Alignment
 
     M = MutationProcess(A4, subst_probs=0.06, go_prob=0.02, ge_prob=0.05,
                         rng=rng)
@@ -113,8 +112,7 @@ def test_extend_segments_window_split_contract(rng):
     # a tiny budget forces the ~12k a-span into several windows (the
     # floor is 8 * pad_a = 4096 antidiagonals)
     out = extend_segments(
-        S, T, segments, subst=subst, go_score=-3.0, ge_score=-1.0,
-        use_pallas=False, with_transcripts=True, _dirs_budget=1,
+        S, T, segments, subst=subst, go_score=-3.0, ge_score=-1.0, with_transcripts=True, _dirs_budget=1,
     )
     assert len(out) > len(segments)
     assert {seg["source_index"] for seg in out} == set(
@@ -149,92 +147,56 @@ def test_extend_segments_shape_grouped(rng):
     wb = WordBlot(S, T, wordlen=8, g_max=0.2)
     segments = list(wb.similar_segments(K_min=120, p_min=0.6))
     assert len(segments) >= 3
-    batched = extend_segments(S, T, segments, use_pallas=False,
+    batched = extend_segments(S, T, segments,
                               with_transcripts=True)
     # the BUCKETED cutout shapes must differ (launch grouping keys),
     # i.e. the batch really split into multiple launches
-    from biseqt_tpu.pipeline import _bucket
+    from biseqt_jax.pipeline import _bucket
     keys = set()
     for seg in segments:
         (d_lo, d_hi), (a_lo, a_hi) = seg["segment"]
         keys.add(_bucket((a_hi - a_lo) // 2 + 1024))  # coarse length proxy
     assert len(keys) > 1, "geometry no longer exercises multi-group launches"
     for k, seg in enumerate(segments):
-        solo = extend_segments(S, T, [seg], use_pallas=False)[0]
+        solo = extend_segments(S, T, [seg])[0]
         assert batched[k]["score"] == pytest.approx(solo["score"],
                                                     abs=1e-3)
         assert set(batched[k]["transcript"]) <= set("MSID")
         assert len(batched[k]["transcript"]) > 0
 
 
-def test_extend_segments_pallas_device_walk_interpret(rng, monkeypatch):
-    """The pipeline's fused DP + on-device-walk pallas path (both the
-    sublane walk and the round-5 lane-packed walk, interpret mode)
-    produces self-consistent transcripts, and the two walks agree
-    exactly (same dirs plane, same step semantics).
-
-    Guards the production transcript route of ``extend_segments``
-    (reference contract: pwlib dptable solve + traceback), which the
-    lax-path tests above never touch."""
-    from biseqt_tpu import native
-    from biseqt_tpu.pw import Alignment
-    import biseqt_tpu.pipeline as pipeline_mod
-
-    if not native.available():
-        pytest.skip("native library unavailable (sweep compactor)")
-
-    M = MutationProcess(A4, subst_probs=0.08, go_prob=0.03, ge_prob=0.1,
-                        rng=rng)
-    # tiny on purpose: interpret-mode Pallas simulates the kernels
-    # step by step, so each launch costs minutes at the other tests'
-    # sizes (CLAUDE.md: keep interpret-mode kernel tests small)
-    cores = [rand_seq(A4, 100, rng=rng) for _ in range(2)]
-    sp = lambda n: rand_seq(A4, n, rng=rng)
-    S = sp(40) + cores[0] + sp(60) + cores[1]
-    T = sp(30) + M.mutate(cores[0])[0] + sp(120) + M.mutate(cores[1])[0]
-    wb = WordBlot(S, T, wordlen=8, g_max=0.2)
-    segments = list(wb.similar_segments(K_min=60, p_min=0.6))
-    assert len(segments) >= 2
-    subst = np.where(np.eye(4, dtype=bool), 1.0, -1.0).astype(np.float32)
-
-    outs = {}
-    for label, lane_min in (("sublane", 10 ** 9), ("lane_packed", 1)):
-        monkeypatch.setattr(pipeline_mod, "_LANE_WALK_MIN_B2", lane_min)
-        outs[label] = extend_segments(
-            S, T, segments, subst=subst, go_score=-3.0, ge_score=-1.0,
-            use_pallas=True, with_transcripts=True, _interpret=True,
-            # small chunks keep the unrolled interpret-mode CPU
-            # compile tractable (see tests/test_pallas_dp_ad.py)
-            _r_chunk=16, _walk_r_rows=8,
-        )
-    for label, out in outs.items():
-        for seg in out:
-            assert set(seg["transcript"]) <= set("MSID"), label
-            aln = Alignment(
-                S, T, seg["transcript"],
-                origin_start=seg["origin_start"],
-                mutate_start=seg["mutate_start"],
-            )
-            rescored = aln.calculate_score(subst, -3.0, -1.0)
-            assert rescored == pytest.approx(seg["score"], abs=1e-3), (
-                label, seg)
-            assert len(seg["transcript"]) > 60, label
-    for a, b in zip(outs["sublane"], outs["lane_packed"]):
-        assert a["transcript"] == b["transcript"]
-        assert a["score"] == b["score"]
-        assert (a["origin_start"], a["mutate_start"]) == (
-            b["origin_start"], b["mutate_start"])
-
-
 def test_extend_segments_transcripts_native_unavailable(rng, monkeypatch):
     """with_transcripts=True fails up front with a clear message when
     the native tier is missing (every transcript route compacts with
     C++) — not deep in _finish after launches are in flight."""
-    from biseqt_tpu import native
+    from biseqt_jax import native
 
     monkeypatch.setattr(native, "available", lambda: False)
     S = rand_seq(A4, 100, rng=rng)
     seg = {"segment": ((-10, 10), (0, 200))}
     with pytest.raises(RuntimeError, match="native C\\+\\+ tier"):
-        extend_segments(S, S, [seg], use_pallas=False,
+        extend_segments(S, S, [seg],
                         with_transcripts=True)
+
+
+class _Dev:
+    def __init__(self, stats):
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+@pytest.mark.parametrize("stats,expect", [
+    ({"bytes_limit": 80 << 30}, 20 << 30),
+    ({"bytes_limit": 60 << 30, "bytes_in_use": 1}, 15 << 30),
+    ({}, 3 << 30),
+    (None, 3 << 30),
+])
+def test_pipeline_bytes_from_device_limit(stats, expect):
+    """The in-flight budget is a fixed share of what the device reports
+    it may hold; a backend without memory stats (the CPU) gets the fixed
+    default."""
+    from biseqt_jax.pipeline import pipeline_bytes
+
+    assert pipeline_bytes(_Dev(stats)) == expect

@@ -1,4 +1,4 @@
-"""Two-tier protein search (biseqt_tpu/protein.py) + reduced alphabets.
+"""Two-tier protein search (biseqt_jax/protein.py) + reduced alphabets.
 
 The filter tier must be a faithful coarse proxy (homologs score far
 above shuffled nulls) and the rescore tier must agree EXACTLY with a
@@ -9,15 +9,15 @@ any disagreement is a compaction/padding bug.
 import numpy as np
 import pytest
 
-from biseqt_tpu.matrices import (BLOSUM62, DAYHOFF6_GROUPS,
+from biseqt_jax.matrices import (BLOSUM62, DAYHOFF6_GROUPS,
                                  MURPHY4_GROUPS, MURPHY10_GROUPS,
                                  PROTEIN_LETTERS, compression_map,
                                  protein_alphabet, reduced_alphabet,
                                  reduced_matrix)
-from biseqt_tpu.ops.banded_dp import ModeFlags, banded_dp
-from biseqt_tpu.protein import (compress_codes, null_threshold,
+from biseqt_jax.ops.banded_dp import ModeFlags, banded_dp
+from biseqt_jax.protein import (compress_codes, null_threshold,
                                 reduce_seq, two_tier_scores)
-from biseqt_tpu.sequence import Sequence
+from biseqt_jax.sequence import Sequence
 
 import jax.numpy as jnp
 
@@ -74,7 +74,7 @@ def test_reduce_seq_roundtrip():
     np.testing.assert_array_equal(
         red.to_array(), cmap[seq.to_array()])
     # non-protein alphabet refused
-    from biseqt_tpu.sequence import Alphabet
+    from biseqt_jax.sequence import Alphabet
     with pytest.raises(ValueError):
         reduce_seq(Sequence(Alphabet("ACGT"), np.asarray([0, 1], np.int8)))
 
@@ -104,7 +104,7 @@ def test_two_tier_matches_full_run(rng):
     kw = dict(W=64, go=-11.0, ge=-1.0, flags=flags)
 
     # null calibration: shuffled targets through the reduced tier
-    from biseqt_tpu.matrices import reduced_matrix as rm
+    from biseqt_jax.matrices import reduced_matrix as rm
     perm = np.stack([rng.permutation(r) for r in ts])
     cmap = compression_map(DAYHOFF6_GROUPS)
     null = banded_dp(
@@ -163,78 +163,39 @@ def test_two_tier_no_survivors(rng):
     assert np.isinf(res.full_scores).all()
 
 
-@pytest.mark.parametrize("groups", [DAYHOFF6_GROUPS, MURPHY10_GROUPS])
-def test_reduced_matrix_pallas_packed_parity(rng, groups):
-    """The filter tier's forced packed-planes path (A=6 sits below the
-    kernel's auto threshold of 8) must agree with the lax oracle on the
-    reduced matrix."""
-    from biseqt_tpu.ops.pallas_dp_ad import banded_dp_pallas_ad
-
-    cmap = compression_map(groups)
-    red = reduced_matrix(BLOSUM62, groups)
-    A = red.shape[0]
-    B, L = 6, 96
-    ss = compress_codes(
-        rng.integers(0, 20, (B, L)).astype(np.int8), cmap)
-    ts = ss.copy()
-    m = rng.random((B, L)) < 0.3
-    ts[m] = rng.integers(0, A, int(m.sum()))
-    lens = np.full((B,), L, np.int32)
-    lens[1] = 70
-    dmin = np.full((B,), -40, np.int32)
-    w_eff = np.full((B,), 100, np.int32)
-    flags = ModeFlags(local_start=True, local_end=True)
-    kw = dict(W=128, subst=jnp.asarray(red), go=-11.0, ge=-1.0,
-              flags=flags, w_eff=jnp.asarray(w_eff))
-    want = banded_dp(
-        jnp.asarray(ss), jnp.asarray(ts), jnp.asarray(lens),
-        jnp.asarray(lens), jnp.asarray(dmin), **kw)
-    got = banded_dp_pallas_ad(
-        jnp.asarray(ss), jnp.asarray(ts), jnp.asarray(lens),
-        jnp.asarray(lens), jnp.asarray(dmin), A=A, interpret=True,
-        block_b=8, r_chunk=16, _subst_packed=True, **kw)
-    np.testing.assert_allclose(
-        np.asarray(got.score), np.asarray(want.score), atol=1e-3)
-
-
 def test_two_tier_survivor_transcripts(rng):
-    """with_dirs=True on the pallas engine: survivors' dirs planes walk
-    to the SAME transcripts as a direct full-matrix run on those pairs
-    (the reference's Aligner contract includes transcripts)."""
-    from biseqt_tpu import native
-    from biseqt_tpu.ops.pallas_dp_ad import (banded_dp_pallas_ad,
-                                             parity_adjusted_dmin)
+    """with_dirs=True: survivors' direction planes walk to the SAME
+    transcripts as a direct full-matrix run on those pairs (the
+    reference's Aligner contract includes transcripts)."""
+    from biseqt_jax import native
 
+    if not native.available():
+        pytest.skip("native library unavailable")
     ss, ts, lens, dmin, w_eff, n_hom = _protein_batch(rng, B=8, L=96)
-    w_eff = np.full((8,), 100, np.int32)   # pallas kernel wants W=128
+    w_eff = np.full((8,), 100, np.int32)
     dmin = np.full((8,), -40, np.int32)
     flags = ModeFlags(local_start=True, local_end=True)
     kw = dict(W=128, go=-11.0, ge=-1.0, flags=flags)
-    opts = dict(interpret=True, block_b=8, r_chunk=16)
     res = two_tier_scores(
         ss, ts, lens, lens, dmin, w_eff=w_eff, threshold=100.0,
-        engine="pallas", engine_opts=opts, with_dirs=True, **kw)
+        with_dirs=True, **kw)
     assert res.survivors[:n_hom].all() and not res.survivors[n_hom:].any()
     S, pad = res.survivor_idx.size, res.survivor_pad
     assert pad.shape[0] >= S and (pad[:S] == res.survivor_idx).all()
-    # walk the survivor batch's dirs
-    dminq = parity_adjusted_dmin(
-        dmin[pad], np.arange(pad.size, dtype=np.int32) % 2)
-    got_ops, _, _ = native.traceback_batch_ad(
-        np.asarray(res.full.dirs), dminq, ss[pad], ts[pad],
-        lens[pad], lens[pad],
-        np.asarray(res.full.end_i).astype(np.int32),
-        np.asarray(res.full.end_j).astype(np.int32), flags)
+    dmax = dmin[pad] + 127
+    got_ops, _, _ = native.traceback_batch(
+        np.asarray(res.full.dirs), dmax, ss[pad], ts[pad],
+        lens[pad], lens[pad], np.asarray(res.full.end_i),
+        np.asarray(res.full.end_j), flags)
     # reference: direct full-matrix run on exactly the survivor pairs
-    ref = banded_dp_pallas_ad(
+    ref = banded_dp(
         jnp.asarray(ss[pad]), jnp.asarray(ts[pad]),
         jnp.asarray(lens[pad]), jnp.asarray(lens[pad]),
-        jnp.asarray(dmin[pad]), subst=BLOSUM62, A=20,
-        w_eff=jnp.asarray(w_eff[pad]), with_dirs=True, **opts, **kw)
-    ref_ops, _, _ = native.traceback_batch_ad(
-        np.asarray(ref.dirs), dminq, ss[pad], ts[pad], lens[pad],
-        lens[pad], np.asarray(ref.end_i).astype(np.int32),
-        np.asarray(ref.end_j).astype(np.int32), flags)
+        jnp.asarray(dmin[pad]), subst=BLOSUM62,
+        w_eff=jnp.asarray(w_eff[pad]), with_dirs=True, **kw)
+    ref_ops, _, _ = native.traceback_batch(
+        np.asarray(ref.dirs), dmax, ss[pad], ts[pad], lens[pad],
+        lens[pad], np.asarray(ref.end_i), np.asarray(ref.end_j), flags)
     for k in range(S):
         assert got_ops[k] == ref_ops[k], k
         assert len(got_ops[k]) > 0
@@ -248,10 +209,10 @@ def test_protein_seed_and_extend_reduced_alphabet(rng):
     emits transcripts — the reference's protein workflow end to end.
     Reduction is position-preserving, so discovered (d, a) coordinates
     carry over to the unreduced pair unchanged."""
-    from biseqt_tpu.blot import WordBlot
-    from biseqt_tpu.pipeline import extend_segments
-    from biseqt_tpu.pw import Alignment
-    from biseqt_tpu.stochastics import MutationProcess, rand_seq
+    from biseqt_jax.blot import WordBlot
+    from biseqt_jax.pipeline import extend_segments
+    from biseqt_jax.pw import Alignment
+    from biseqt_jax.stochastics import MutationProcess, rand_seq
 
     A20 = protein_alphabet()
     M = MutationProcess(A20, subst_probs=0.15, go_prob=0.02,
@@ -267,7 +228,7 @@ def test_protein_seed_and_extend_reduced_alphabet(rng):
     assert segments, "reduced-alphabet discovery found nothing"
     out = extend_segments(
         S, T, segments, subst=BLOSUM62, go_score=-11.0, ge_score=-1.0,
-        use_pallas=False, with_transcripts=True)
+        with_transcripts=True)
     best = max(out, key=lambda seg: seg["score"])
     assert best["score"] > 200, best["score"]
     # the transcript rescores to exactly the reported BLOSUM62 score

@@ -8,10 +8,10 @@ transcripts checked by re-scoring (any optimal path is acceptable).
 import numpy as np
 import pytest
 
-from biseqt_tpu.sequence import Alphabet, Sequence
-from biseqt_tpu.stochastics import MutationProcess, rand_seq
-from biseqt_tpu import pw
-from biseqt_tpu.pw import Aligner, Alignment
+from biseqt_jax.sequence import Alphabet, Sequence
+from biseqt_jax.stochastics import MutationProcess, rand_seq
+from biseqt_jax import pw
+from biseqt_jax.pw import Aligner, Alignment
 
 from oracle import dp_oracle
 
@@ -217,7 +217,7 @@ def test_row0_alignment_ends():
     scan trackers previously started at i=1 with best=NEG).  Confirmed
     repros: free-end optimum at H[0][1]; local-end zero at H[0][0];
     empty-origin global pair = the all-gap alignment, not NEG."""
-    from biseqt_tpu.ops.banded_dp import banded_dp, full_dp, ModeFlags
+    from biseqt_jax.ops.banded_dp import banded_dp, full_dp, ModeFlags
     import jax.numpy as jnp
 
     subst = np.full((4, 4), -100.0, np.float32)
@@ -256,7 +256,7 @@ def test_row0_alignment_ends():
 def test_positive_gap_scores_rejected():
     """The closed-form E scan requires go <= 0, ge <= 0 — positive
     values used to return silently wrong scores."""
-    from biseqt_tpu.ops.banded_dp import banded_dp, ModeFlags
+    from biseqt_jax.ops.banded_dp import banded_dp, ModeFlags
     import jax.numpy as jnp
 
     subst = np.where(np.eye(4, dtype=bool), 5.0, -1.0).astype(np.float32)
@@ -274,7 +274,7 @@ def test_full_dp_traceback_chunked_matches_materialized(rng):
     multiple blocks forced via a small block_rows, across modes and
     ragged lengths."""
     import jax.numpy as jnp
-    from biseqt_tpu.ops.banded_dp import (
+    from biseqt_jax.ops.banded_dp import (
         full_dp, full_dp_traceback, traceback_path, ModeFlags,
     )
 

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from biseqt_tpu.sequence import Alphabet, Sequence
-from biseqt_tpu.stochastics import rand_seq, MutationProcess
-from biseqt_tpu.seeds import SeedIndex, SeedIndexMultiple, Seed
-from biseqt_tpu.kmers import as_kmer_seq
+from biseqt_jax.sequence import Alphabet, Sequence
+from biseqt_jax.stochastics import rand_seq, MutationProcess
+from biseqt_jax.seeds import SeedIndex, SeedIndexMultiple, Seed
+from biseqt_jax.kmers import as_kmer_seq
 
 A4 = Alphabet("ACGT")
 
@@ -101,8 +101,8 @@ def test_seed_index_multiple_device_tier_matches_host(rng):
     inputs where shared k-mers REPEAT (so cross products actually fan
     out) — both tiers implement capped cross products of the first h
     positions per sequence."""
-    from biseqt_tpu.seeds import SeedIndexMultiple
-    from biseqt_tpu.stochastics import MutationProcess
+    from biseqt_jax.seeds import SeedIndexMultiple
+    from biseqt_jax.stochastics import MutationProcess
 
     M = MutationProcess(A4, subst_probs=0.05, go_prob=0.02, ge_prob=0.05,
                         rng=rng)

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from biseqt_tpu.sequence import (
+from biseqt_jax.sequence import (
     Alphabet, Sequence, NamedSequence, EditTranscript, PAD,
     pack_sequences, unpack_sequence,
 )

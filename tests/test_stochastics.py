@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from biseqt_tpu.sequence import Alphabet, EditTranscript
-from biseqt_tpu.stochastics import (
+from biseqt_jax.sequence import Alphabet, EditTranscript
+from biseqt_jax.stochastics import (
     rand_seq, rand_read, MutationProcess,
     binomial_to_normal, normal_neg_log_pvalue,
 )
@@ -126,8 +126,8 @@ def test_device_tier_batch_sim(rng):
     """rand_seq_batch + mutate_batch: calibrated rates, valid outputs."""
     import jax
     import jax.numpy as jnp
-    from biseqt_tpu.stochastics import rand_seq_batch, mutate_batch
-    from biseqt_tpu.sequence import PAD
+    from biseqt_jax.stochastics import rand_seq_batch, mutate_batch
+    from biseqt_jax.sequence import PAD
 
     key = jax.random.PRNGKey(0)
     B, L = 16, 2000
